@@ -1,6 +1,6 @@
 """ChEES-HMC vs NUTS on the headline logistic-regression posterior.
 
-The point of ChEES (samplers/chees.py) is TPU shape: NUTS pays for the
+The point of ChEES (samplers/chees.py) is SIMD shape: NUTS pays for the
 deepest tree in the vmapped batch every step, while ChEES chains all run the
 same shared-length trajectory.  This unit measures both samplers' wall-clock
 transition rate, pooled min-coordinate ESS/s, and ESS per gradient
@@ -15,7 +15,7 @@ import numpy as np
 def _logistic_model(n=1000, nbeta=10):
     import jax.numpy as jnp
 
-    import mcmc_jl_tpu as mc
+    import mcmc_jl as mc
 
     rng = np.random.default_rng(1)
     Xh = np.column_stack([np.ones(n), rng.standard_normal((n, nbeta - 1))])
@@ -33,7 +33,7 @@ def _logistic_model(n=1000, nbeta=10):
 
 
 def _min_ess_pooled(x):
-    from mcmc_jl_tpu.stats.var import mcvar_iid, mcvar_imse
+    from mcmc_jl.stats.var import mcvar_iid, mcvar_imse
 
     kept, n_chains, d = x.shape
     tot = 0.0
@@ -45,8 +45,8 @@ def _min_ess_pooled(x):
 def run():
     import jax
 
-    import mcmc_jl_tpu as mc
-    from mcmc_jl_tpu.parallel import run_chains
+    import mcmc_jl as mc
+    from mcmc_jl.parallel import run_chains
 
     model = _logistic_model()
     n_chains, steps, burnin = 32, 600, 300
@@ -82,45 +82,4 @@ def run():
              1000.0 * ess / grads, "ESS/kgrad"),
         ]
 
-    # --- round-4: opt-in NUTS warm handoff vs staying-NUTS ---------------
-    # same posterior as a model(glm=...) so the handoff's fused sampling
-    # phase (frozen DA eps + empirical trajectory lengths through the
-    # dynamic-length kernel) is reachable; warmup INCLUDED in the timing.
-    import jax.numpy as jnp
-
-    from mcmc_jl_tpu.ops.warmstart import warmfused_nuts_chains
-
-    rng = np.random.default_rng(1)
-    Xh = np.column_stack([np.ones(1000), rng.standard_normal((1000, 9))])
-    beta0 = rng.standard_normal(10)
-    Yh = (rng.random(1000) < 1.0 / (1.0 + np.exp(-Xh @ beta0))).astype(float)
-    mg = mc.model(glm=("logistic", Xh, Yh))
-    s_h = mc.NUTS(maxdoublings=6, warm_handoff=True)
-    interp = jax.default_backend() != "tpu"
-
-    def go(seed):
-        infos, _ = warmfused_nuts_chains(mg, s_h, runner, n_chains,
-                                         key=jax.random.PRNGKey(seed),
-                                         interpret=interp)
-        float(jnp.mean(infos["plogtarget"][-1]))  # stop-clock fetch
-        return infos
-
-    go(0)  # compile + warm
-    t0 = time.perf_counter()
-    infos = go(1)
-    dt = time.perf_counter() - t0
-    x = np.asarray(jax.device_get(infos["ppars"]))[burnin:]
-    ess = _min_ess_pooled(x)
-    out += [
-        ("logistic 10x1000 NUTS warm-handoff: transitions/s",
-         n_chains * steps / dt, "steps/s"),
-        ("logistic 10x1000 NUTS warm-handoff: pooled min-coord ESS/s",
-         ess / dt, "ESS/s"),
-        # NOTE: this 32-chain ratio is latency-bound noise on a single
-        # chip — the at-scale measurement (256/1024 chains, vs both the
-        # generic engine AND the round-5 exact fused tree kernel) lives
-        # in benchunits/nuts_fused.py
-        ("logistic 10x1000 NUTS warm-handoff vs staying-NUTS (ESS/s ratio)",
-         (ess / dt) / max(essps["NUTS(md=6)"], 1e-12), "x"),
-    ]
     return out

@@ -13,9 +13,9 @@ def run():
     import jax
     import jax.numpy as jnp
 
-    import mcmc_jl_tpu as mc
-    from mcmc_jl_tpu.parallel import run_chains
-    from mcmc_jl_tpu.stats.var import mcvar_iid, mcvar_imse
+    import mcmc_jl as mc
+    from mcmc_jl.parallel import run_chains
+    from mcmc_jl.stats.var import mcvar_iid, mcvar_imse
 
     model = mc.model(lambda v: -jnp.dot(v, v), grad=lambda v: -2 * v,
                      init=jnp.ones(3), check_init=False)

@@ -11,9 +11,9 @@ import numpy as np
 def run():
     import jax.numpy as jnp
 
-    import mcmc_jl_tpu as mc
-    from mcmc_jl_tpu.parallel import run_chains
-    from mcmc_jl_tpu.stats.var import mcvar_iid, mcvar_imse
+    import mcmc_jl as mc
+    from mcmc_jl.parallel import run_chains
+    from mcmc_jl.stats.var import mcvar_iid, mcvar_imse
 
     A = np.array([[1.0, 0.3, 0.0], [0.3, 2.0, 0.2], [0.0, 0.2, 0.5]])
     Aj = jnp.asarray(A)

@@ -13,7 +13,7 @@ import numpy as np
 def run():
     import jax.numpy as jnp
 
-    import mcmc_jl_tpu as mc
+    import mcmc_jl as mc
 
     scales = np.array([3.0, 1.0, 0.5, 2.0])
     d = len(scales)
@@ -39,46 +39,4 @@ def run():
         out.append((f"corr-gauss HMC {label} mass: min-coord ESS/s",
                     min_ess / dt, "ESS/s"))
 
-    # --- round-4: dense-mass fold at FUSED rate ---------------------------
-    # The identical correlated Gaussian as a linear-link GLM: with Y = 0
-    # and design G such that G^T G + lam I = P, loglik + prior =
-    # -0.5 v' P v exactly — so the warm-start dense fold (matrix-prior
-    # kernel, ops/warmstart.py) serves the same target with multi-chain
-    # fused sampling instead of the generic single-chain engine above.
-    import jax
-    import jax.numpy as jnp
-
-    from mcmc_jl_tpu.ops.warmstart import warmfused_hmc_chains
-    from mcmc_jl_tpu.stats.var import mcvar_iid, mcvar_imse
-
-    on_tpu = jax.default_backend() == "tpu"
-    P = np.linalg.inv(sig)
-    # keep G^T G = P - lam I positive definite: lam below P's smallest eig
-    lam = 0.5 * float(np.linalg.eigvalsh(P).min())
-    G = np.linalg.cholesky(P - lam * np.eye(d)).T
-    mglm = mc.model(glm=("linear", G, np.zeros(d)), prior_prec=lam)
-    C, fr = (512, runner) if on_tpu else (8, mc.SerialMC(steps=2000,
-                                                         burnin=800))
-    sampler_f = mc.HMC(10, 0.25, mass_adapt="dense")
-
-    def go(seed):
-        infos, _ = warmfused_hmc_chains(mglm, sampler_f, fr, C,
-                                        key=jax.random.PRNGKey(seed),
-                                        interpret=not on_tpu)
-        float(jnp.mean(infos["plogtarget"][-1]))  # stop-clock fetch
-        return infos
-
-    go(0)  # compile + warm
-    t0 = time.perf_counter()
-    infos = go(1)
-    dt = time.perf_counter() - t0
-    ess_chains = min(16, C)
-    x = np.asarray(jax.device_get(infos["ppars"][fr.burnin:, :ess_chains]))
-    kept = x.shape[0]
-    tot = 0.0
-    for c in range(ess_chains):
-        tot += float(np.min(kept * mcvar_iid(x[:, c]) / mcvar_imse(x[:, c])))
-    essps = tot * (C / ess_chains) / dt
-    out.append((f"corr-gauss dense-mass FUSED ({C} chains): min-coord ESS/s",
-                essps, "ESS/s"))
     return out

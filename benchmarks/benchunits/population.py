@@ -2,7 +2,7 @@
 adaptive annealed SMC (ASMC) on the logistic-regression posterior.
 
 The reference has no tempering/SMC benchmarks (SerialTempMC/SeqMC are
-untimed); these rates are the TPU-native interacting-ensemble operating
+untimed); these rates are the batched interacting-ensemble operating
 points: rung-transitions/s for a fully-batched ladder and particle-moves/s
 for annealed SMC (plus its adaptive stage count and logZ as sanity values).
 """
@@ -15,7 +15,7 @@ def run():
     import jax
     import jax.numpy as jnp
 
-    import mcmc_jl_tpu as mc
+    import mcmc_jl as mc
 
     n, nbeta = 1000, 10
     rng = np.random.default_rng(1)

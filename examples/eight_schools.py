@@ -19,7 +19,7 @@ Run: python examples/eight_schools.py
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 # classic data (treatment effects and standard errors)
 Y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])

@@ -15,7 +15,7 @@ Run: python examples/funnel.py
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 DIM_X = 9
 

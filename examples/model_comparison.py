@@ -5,7 +5,7 @@ Two nested models for the same data y (n=40 draws from N(0.8, 1)):
   M1: y_i ~ N(theta, 1), theta ~ N(0, 1)   (has a location parameter)
   M0: y_i ~ N(0, 1)                         (fixed null, logZ = loglik)
 
-log Z(M1) is estimated three independent ways, all TPU-batched:
+log Z(M1) is estimated three independent ways, all batched on device:
   * thermodynamic integration  (`mc.logz_ti`, prior-tempered PTMC ladder)
   * stepping-stone             (`mc.logz_ss`, same run)
   * adaptive annealed SMC      (`ASMC` diagnostics["logz"])
@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 L2PI = np.log(2 * np.pi)
 

@@ -6,7 +6,7 @@ model scale hint helps RWM-family samplers (m.scale, reference ornstein.jl:31).
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def make_series(seed=1, duration=1000, mu0=10.0, tau0=20.0, sigma0=0.1):

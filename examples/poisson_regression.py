@@ -3,15 +3,16 @@
 Counts with unequal exposure windows: y_i ~ Poisson(E_i * exp(x_i' beta)),
 i.e. a log-link GLM with offset log(E_i) — the canonical use of
 ``model(glm=..., offsets=...)``.  The same model object runs on every
-sampler; multi-chain ``run(..., chains=N)`` routes plain HMC to the fused
-Pallas trajectory kernel on TPU.
+sampler; on a GPU, ``run(..., chains=N, fused=True)`` runs plain HMC
+through the Triton trajectory kernel (``fused="auto"`` keeps the poisson
+link on XLA: the kernel was timed only on the logistic link).
 
 (The reference has no GLM front end; its closest workload is the logistic
 example, examples/logistic_regression.jl.)
 """
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def make_data(n=400, seed=7):

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 from jax.scipy import special as jsp
 
 LOG2PI = np.log(2 * np.pi)

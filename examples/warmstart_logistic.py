@@ -1,22 +1,15 @@
-"""Adaptive HMC at fused-kernel speed: the warm-start pipeline.
+"""Adaptive HMC on many chains: a warm start, then a frozen sampling phase.
 
-The realistic production run — dual-averaging / tuner step-size adaptation
-plus a diagonal mass metric during burn-in, then a long sampling phase —
-historically fell off every fast path (adaptation needs per-chain mutable
-state).  Here the whole thing goes through ``run(task, chains=N)``:
-burn-in runs on the generic engine with the sampler's own adaptation, the
-frozen hyper-parameters drive the fused Pallas kernel for the sampling
-phase (ops/warmstart.py), and the chains come back with the standard
-protocol (exact resume included).
-
-On a TPU v5e this measures ~154M leapfrog/s END TO END (warmup included)
-with ~70x the ESS/s of the same budget spent at fixed hyper-parameters
-(docs/BENCH.md).  On CPU the fused kernel runs in interpret mode — same
-code path, test-sized shapes.
+The realistic production run — tuner step-size adaptation plus a diagonal
+mass metric during burn-in, then a long sampling phase at the frozen
+hyper-parameters — goes through ``run(task, chains=N)`` on the generic
+vmapped engine: every chain adapts during burn-in (reference
+samplers.jl:31-50), the adaptation freezes at the end of burn-in, and the
+chains come back with the standard protocol (exact resume included).
 """
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def make_data(n=1000, nbeta=10, seed=1):
@@ -34,7 +27,7 @@ def main(n=1000, nbeta=10, chains=8, steps=2000, burnin=500):
     # EmpMCTuner adapts the step size toward 80% acceptance during burn-in
     # (reference samplers.jl:31-50); mass_adapt="diag" adds a Welford
     # diagonal metric (beyond-reference).  Both freeze at the end of
-    # burn-in — which is exactly what lets the sampling phase run fused.
+    # burn-in.
     sampler = mc.HMC(10, 0.02, mc.EmpMCTuner(0.8, adapt_step=50),
                      mass_adapt="diag")
     task = model * sampler * mc.SerialMC(steps=steps, burnin=burnin)

@@ -3,8 +3,7 @@
 # jax.clear_caches() keeps one process under the XLA segfault cliff today,
 # but suite growth erodes the headroom — a process boundary resets XLA's
 # internal state completely).  The halves are split by file name so each
-# stays well under the single-process footprint; both use the suite's
-# private compilation cache (tests/conftest.py).
+# stays well under the single-process footprint.
 #
 # Usage: bash tests/run_suite_split.sh [extra pytest args]
 set -uo pipefail

@@ -4,7 +4,7 @@ set; gradient-free and affine-invariant by construction."""
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def test_aies_correlated_gaussian_moments():

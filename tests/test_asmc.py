@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 L2PI = np.log(2 * np.pi)
 
@@ -99,7 +99,7 @@ def test_asmc_validation():
 def test_asmc_sharded_over_mesh():
     """Particle axis sharded over the virtual 8-device mesh: same gates
     (logZ, posterior moments) through the collective-inserting path."""
-    from mcmc_jl_tpu.parallel.sharded import make_mesh
+    from mcmc_jl.parallel.sharded import make_mesh
 
     logp, logprior, prior_sample, logz, mu, sd = _conjugate()
     m = mc.model(logp, gradient=True, init=jnp.zeros(1))

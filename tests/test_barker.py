@@ -4,7 +4,7 @@ gracefully under step-size mis-tuning where MALA collapses."""
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def _gauss1d():

@@ -1,5 +1,5 @@
 """ChEES-HMC (samplers/chees.py) — cross-chain adaptive trajectory lengths,
-the TPU-native alternative to NUTS (beyond the reference's capability set).
+the SIMD-friendly alternative to NUTS (beyond the reference's capability set).
 
 Adaptation happens in the engine-level pool hook, so these run through the
 multi-chain engine (`run(task, chains=N)` / `run_chains`)."""
@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.parallel import run_chains
+import mcmc_jl as mc
+from mcmc_jl.parallel import run_chains
 
 
 def _gauss_model(sd):
@@ -104,7 +104,7 @@ def test_chees_beats_fixed_hmc_on_wide_scales():
 
 
 def test_halton_sequence_properties():
-    from mcmc_jl_tpu.samplers.chees import halton2
+    from mcmc_jl.samplers.chees import halton2
 
     idx = jnp.arange(1, 129, dtype=jnp.int32)
     u = np.asarray(jax.vmap(halton2)(idx))

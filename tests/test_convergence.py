@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def _gauss_model(d=3, sigma=2.0):
@@ -42,7 +42,7 @@ def test_run_until_respects_max_steps():
 def test_run_until_states_resume():
     """Final states are resume-ready: continuing with run_chains works and
     advances from the stored positions."""
-    from mcmc_jl_tpu.parallel.pchains import run_chains
+    from mcmc_jl.parallel.pchains import run_chains
 
     m = _gauss_model()
     res = mc.run_until(m, mc.HMC(4, 0.8), n_chains=4, rhat_target=1.05,
@@ -53,44 +53,22 @@ def test_run_until_states_resume():
     assert np.all(np.isfinite(np.asarray(infos["plogtarget"])))
 
 
-def test_run_until_fused_continuation_blocks():
-    """Once the adaptation window is consumed, run_until's blocks route
-    through the fused continuation (round 4) and the gates still pass."""
-    import jax.numpy as jnp
-
-    import mcmc_jl_tpu.ops.warmstart as ws
-
+def test_run_until_adaptive_glm_blocks():
+    """Adaptive HMC on a model(glm=...) posterior: the burn-in blocks adapt,
+    the later blocks run frozen on the generic engine, and the gates pass
+    with draws that agree with a fixed-step generic run."""
     rng = np.random.default_rng(7)
     X = np.column_stack([np.ones(80), rng.standard_normal((80, 2))])
     Y = (rng.random(80) < 1.0 / (1.0 + np.exp(-X @ [0.3, 1.0, -0.5]))
          ).astype(float)
     m = mc.model(glm=("logistic", X, Y))
     s = mc.HMC(5, 0.05, mc.EmpMCTuner(0.8, adapt_step=50))
-
-    calls = []
-    orig = ws.make_fused_continuation
-
-    def spy(*a, **kw):
-        fn = orig(*a, **kw)
-
-        def counted(*fa, **fkw):
-            calls.append(1)
-            return fn(*fa, **fkw)
-
-        return counted
-
-    ws.make_fused_continuation = spy
-    try:
-        res = mc.run_until(m, s, n_chains=4, rhat_target=1.1, min_ess=50,
-                           check_every=200, max_steps=2000, seed=0,
-                           fused=True)
-    finally:
-        ws.make_fused_continuation = orig
-    assert calls, "fused continuation blocks were not routed"
+    res = mc.run_until(m, s, n_chains=4, rhat_target=1.1, min_ess=50,
+                       check_every=200, max_steps=2000, seed=0)
     assert res.converged
     assert np.all(np.isfinite(res.samples))
-    # gate values match a generic run's ballpark on the same posterior
-    res_g = mc.run_until(m, s, n_chains=4, rhat_target=1.1, min_ess=50,
-                         check_every=200, max_steps=2000, seed=0,
-                         fused=False)
+    # the tuner froze after warmup: every chain carries its adapted step
+    assert np.all(np.asarray(res.states.tune.step_size) != 0.05)
+    res_g = mc.run_until(m, mc.HMC(5, 0.1), n_chains=4, rhat_target=1.1,
+                         min_ess=50, check_every=200, max_steps=2000, seed=1)
     assert abs(res.samples.mean() - res_g.samples.mean()) < 0.2

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import scipy.stats as st
 
-import mcmc_jl_tpu.models.distributions as D
+import mcmc_jl.models.distributions as D
 
 # (our distribution, scipy frozen, test points)
 CASES = [
@@ -178,7 +178,7 @@ def test_truncated_matches_scipy():
     """Truncated(D, lo, hi) logpdf/logcdf vs scipy.stats.truncnorm; -inf
     outside bounds (package out-of-support convention)."""
     from scipy.stats import truncnorm
-    import mcmc_jl_tpu as mc
+    import mcmc_jl as mc
 
     mu, sd, lo, hi = 0.5, 2.0, -1.0, 3.0
     d = mc.Truncated(mc.Normal(mu, sd), lo, hi)
@@ -206,7 +206,7 @@ def test_truncated_matches_scipy():
 
 def test_truncated_sampling_moment():
     """Half-normal target via Truncated in a model: E[x] = sqrt(2/pi)."""
-    import mcmc_jl_tpu as mc
+    import mcmc_jl as mc
 
     def ex(v):
         mc.tilde(v, mc.Truncated(mc.Normal(0.0, 1.0), 0.0, None))

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import scipy.stats as st
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 N = 10000
 KSTHRESHOLD = 10  # loosened like the reference (test_dists.jl:13)

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.models.model import _model_vars
+import mcmc_jl as mc
+from mcmc_jl.models.model import _model_vars
 
 
 # ---------------------------------------------------------------------------

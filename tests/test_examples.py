@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent / "examples"))
 
@@ -241,8 +241,8 @@ def test_acc_outside_trace_raises():
 
 
 def test_warmstart_example():
-    """examples/warmstart_logistic.py: adaptive HMC through the warm-start
-    pipeline recovers the generating coefficients."""
+    """examples/warmstart_logistic.py: adaptive HMC on many chains (tuned
+    burn-in, frozen sampling phase) recovers the generating coefficients."""
     import warmstart_logistic as ws
 
     chains = ws.main(n=200, nbeta=4, chains=4, steps=600, burnin=200)

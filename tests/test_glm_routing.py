@@ -1,14 +1,18 @@
-"""model(glm=...) + fused-kernel routing through the standard run()/prun API.
+"""model(glm=...) and the kernel route through the standard run()/prun API.
 
-The fused Pallas path (ops/glm_hmc.py) must be reachable from the normal
-multi-chain surface — `mc.run(task, chains=N, fused=True)` — and produce
-chains statistically identical to the generic vmapped engine, with resumable
-HMCState finals."""
+The GPU GLM trajectory kernel (ops/glm_hmc.py) is reached from the normal
+multi-chain surface, ``mc.run(task, chains=N, fused=...)``; one function,
+``parallel.pchains.kernel_route``, decides the engine.  Off the GPU these
+tests pass ``interpret=True``, which runs the kernel in the Pallas
+interpreter, and compare with the generic vmapped engine."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
+from mcmc_jl.core.task import MCMCTask
+from mcmc_jl.parallel.pchains import KERNEL_MIN_CHAINS, kernel_route
 
 
 def _data(n=90, d=4, seed=3):
@@ -35,12 +39,19 @@ def test_glm_model_matches_manual_logp():
                                atol=1e-8)
 
 
-def test_fused_routing_matches_generic():
+@pytest.fixture
+def f32():
+    """The kernel route computes in f32."""
+    with jax.enable_x64(False):
+        yield
+
+
+def test_fused_routing_matches_generic(f32):
     X, Y = _data()
     m = mc.model(glm=("logistic", X, Y))
     task = m * mc.HMC(5, 0.1) * mc.SerialMC(steps=800, burnin=200)
 
-    chains_fused = mc.run(task, chains=8, seed=0, fused=True)
+    chains_fused = mc.run(task, chains=8, seed=0, fused=True, interpret=True)
     chains_gen = mc.run(task, chains=8, seed=0, fused=False)
     assert len(chains_fused) == 8
 
@@ -59,7 +70,7 @@ def test_fused_routing_matches_generic():
     acc = mc.acceptance(c0)
     assert acc > 40, acc
 
-    # resume continues from the fused final state through the generic path
+    # resume continues from the kernel's final state through the generic path
     c1 = mc.resume(c0, steps=100)
     assert np.all(np.isfinite(c1.samples.values))
 
@@ -67,28 +78,31 @@ def test_fused_routing_matches_generic():
 def test_fused_routing_requires_plain_hmc():
     X, Y = _data()
     m = mc.model(glm=("logistic", X, Y))
-    from mcmc_jl_tpu.parallel.pchains import _fused_eligible
-    from mcmc_jl_tpu.core.task import MCMCTask
-
     r = mc.SerialMC(steps=100, burnin=10)
-    assert _fused_eligible(MCMCTask(m, mc.HMC(5, 0.1), r))
-    assert not _fused_eligible(MCMCTask(m, mc.HMC(5, 0.1, mass_adapt=True), r))
-    assert not _fused_eligible(
-        MCMCTask(m, mc.HMC(5, 0.1, mc.EmpMCTuner(0.8)), r))
-    assert not _fused_eligible(MCMCTask(m, mc.NUTS(), r))
+    C = max(KERNEL_MIN_CHAINS.values())
+
+    def route(model, sampler):
+        return kernel_route(MCMCTask(model, sampler, r), C, backend="gpu")
+
+    assert route(m, mc.HMC(5, 0.1))
+    assert route(m, mc.MALA(0.02))
+    assert not route(m, mc.HMC(5, 0.1, mass_adapt=True))
+    assert not route(m, mc.HMC(5, 0.1, mc.EmpMCTuner(0.8)))
+    assert not route(m, mc.HMC(5, 0.1, True))  # store_leaps
+    assert not route(m, mc.NUTS())
     m2 = mc.model(lambda v: -v @ v, gradient=True, init=jnp.zeros(2),
                   check_init=False)
-    assert not _fused_eligible(MCMCTask(m2, mc.HMC(5, 0.1), r))
+    assert not route(m2, mc.HMC(5, 0.1))
 
 
-def test_fused_logtarget_diag_is_exact():
+def test_fused_logtarget_diag_is_exact(f32):
     """Padded momentum lanes must not leak into the Hamiltonian: the
-    fused path's logtarget diagnostic equals the true model log-density at
-    the stored samples (review finding: up to ~70 nats off before)."""
+    kernel route's logtarget diagnostic equals the model's log-density at
+    the stored samples."""
     X, Y = _data(n=60, d=4, seed=5)
     m = mc.model(glm=("logistic", X, Y))
     task = m * mc.HMC(5, 0.1) * mc.SerialMC(steps=200, burnin=50)
-    c = mc.run(task, chains=2, seed=0, fused=True)[0]
+    c = mc.run(task, chains=2, seed=0, fused=True, interpret=True)[0]
     lp_true = np.array([float(m.eval(jnp.asarray(row, jnp.float32)))
                         for row in c.samples.values])
     np.testing.assert_allclose(c.diagnostics["logtarget"], lp_true,
@@ -103,20 +117,17 @@ def test_glmspec_identity_hash():
     assert m.glm_spec != mc.model(glm=("logistic", X, Y)).glm_spec
 
 
-def test_fused_routing_multistage_integrator():
-    """HMC(integrator="2stage") on a GLM posterior routes through the fused
-    kernel (which implements the scheme) and matches the generic engine."""
-    from mcmc_jl_tpu.core.task import MCMCTask
-    from mcmc_jl_tpu.parallel.pchains import _fused_eligible
-
+def test_fused_routing_multistage_integrator(f32):
+    """HMC(integrator="2stage") on a GLM posterior runs through the kernel
+    (which implements the scheme) and matches the generic engine."""
     X, Y = _data()
     m = mc.model(glm=("logistic", X, Y))
     r = mc.SerialMC(steps=800, burnin=200)
     s = mc.HMC(4, 0.2, integrator="2stage")
-    assert _fused_eligible(MCMCTask(m, s, r))
+    assert kernel_route(MCMCTask(m, s, r), 8, backend="gpu", fused=True)
 
     task = m * s * r
-    chains_fused = mc.run(task, chains=8, seed=0, fused=True)
+    chains_fused = mc.run(task, chains=8, seed=0, fused=True, interpret=True)
     chains_gen = mc.run(task, chains=8, seed=0, fused=False)
     mu_f = np.mean([c.samples.values.mean(0) for c in chains_fused], axis=0)
     mu_g = np.mean([c.samples.values.mean(0) for c in chains_gen], axis=0)
@@ -125,9 +136,8 @@ def test_fused_routing_multistage_integrator():
 
 
 def test_target_routing_matches_generic():
-    """Non-GLM data-free model: fused=True routes through the custom-target
-    kernel (ops/pallas_target.py) and matches the generic engine
-    statistically; resume continues through the generic path."""
+    """A non-GLM model has no kernel: "auto" takes the generic engine and
+    gives exactly the fused=False chains; fused=True raises and says why."""
     d = 3
 
     def logp(v):
@@ -135,41 +145,29 @@ def test_target_routing_matches_generic():
 
     m = mc.model(logp, gradient=True, init=jnp.zeros(d), check_init=False)
     task = m * mc.HMC(6, 0.5) * mc.SerialMC(steps=600, burnin=200)
-
-    from mcmc_jl_tpu.parallel.pchains import _fused_eligible, _target_eligible
-    from mcmc_jl_tpu.core.task import MCMCTask
-
-    assert not _fused_eligible(MCMCTask(m, mc.HMC(6, 0.5), task.runner))
-    assert _target_eligible(MCMCTask(m, mc.HMC(6, 0.5), task.runner))
-
-    chains_fused = mc.run(task, chains=8, seed=0, fused=True)
+    with pytest.raises(ValueError, match="model"):
+        mc.run(task, chains=8, seed=0, fused=True, interpret=True)
+    chains_auto = mc.run(task, chains=8, seed=0)
     chains_gen = mc.run(task, chains=8, seed=0, fused=False)
+    for a, b in zip(chains_auto, chains_gen):
+        np.testing.assert_array_equal(a.samples.values, b.samples.values)
 
-    def pooled(chains):
-        return np.concatenate([c.samples.values for c in chains], axis=0)
-
-    sf, sg = pooled(chains_fused), pooled(chains_gen)
-    se = sg.std(0) / np.sqrt(np.mean([mc.ess(c) for c in chains_gen]) * 8)
+    sf = np.concatenate([c.samples.values for c in chains_auto], axis=0)
+    se = sf.std(0) / np.sqrt(np.mean([mc.ess(c) for c in chains_auto]) * 8)
     assert np.all(np.abs(sf.mean(0) - 1.0) < 8 * se + 0.05), (sf.mean(0), se)
     assert np.all(np.abs(sf.std(0) - 2.0) < 0.3), sf.std(0)
-
-    c0 = chains_fused[0]
-    assert c0.gradients.shape[0] == c0.samples.shape[0]
-    assert mc.acceptance(c0) > 40
-    c1 = mc.resume(c0, steps=50)
+    c1 = mc.resume(chains_auto[0], steps=50)
     assert np.all(np.isfinite(c1.samples.values))
 
 
-def test_fused_mala_routing_matches_generic():
-    """Plain MALA routes through the fused kernels via the one-leapfrog
-    HMC equivalence (drift step s == eps^2; MALA.jl:65-126 vs
-    HMC.jl:93-102) — on BOTH the GLM and the custom-target paths
-    (VERDICT r4 stretch #10)."""
+def test_fused_mala_routing_matches_generic(f32):
+    """Plain MALA runs through the kernel as one-leapfrog HMC (drift step
+    s == eps^2; MALA.jl:65-126 vs HMC.jl:93-102)."""
     X, Y = _data()
     m = mc.model(glm=("logistic", X, Y))
     task = m * mc.MALA(0.02) * mc.SerialMC(steps=1200, burnin=300)
 
-    chains_fused = mc.run(task, chains=8, seed=0, fused=True)
+    chains_fused = mc.run(task, chains=8, seed=0, fused=True, interpret=True)
     chains_gen = mc.run(task, chains=8, seed=0, fused=False)
 
     def pooled_mean(chains):
@@ -184,21 +182,105 @@ def test_fused_mala_routing_matches_generic():
     assert abs(acc_f - acc_g) < 12, (acc_f, acc_g)
 
     # final states are exact-resume MALAStates
-    from mcmc_jl_tpu.samplers.mala import MALAState
+    from mcmc_jl.samplers.mala import MALAState
 
     st = chains_fused[0].task.state
     assert isinstance(st, MALAState)
     c1 = mc.resume(chains_fused[0], steps=100)
     assert np.all(np.isfinite(c1.samples.values))
 
-    # custom-target path (data-free model)
-    m2 = mc.model(lambda v: -0.5 * (4.0 * v[0] * v[0] + v[1] * v[1]),
-                  gradient=True, init=jnp.zeros(2), check_init=False)
-    task2 = m2 * mc.MALA(0.1) * mc.SerialMC(steps=1200, burnin=300)
-    cf = mc.run(task2, chains=8, seed=0, fused=True)
-    cg = mc.run(task2, chains=8, seed=0, fused=False)
-    mu_f2, mu_g2 = pooled_mean(cf), pooled_mean(cg)
-    se2 = np.sqrt(np.mean([mc.var(c) for c in cg], axis=0) / 8)
-    assert np.all(np.abs(mu_f2 - mu_g2) < 6 * se2 + 0.05)
-    var_f = np.mean([c.samples.values.var(0) for c in cf], axis=0)
-    np.testing.assert_allclose(var_f, [0.25, 1.0], rtol=0.3)
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+@pytest.mark.parametrize("fused", ["auto", True, False])
+def test_kernel_route_by_backend(backend, fused):
+    """The route given a backend name: the kernel only on the GPU, unless
+    the caller asks for the interpreter."""
+    X, Y = _data()
+    t = MCMCTask(mc.model(glm=("logistic", X, Y)), mc.HMC(5, 0.1),
+                 mc.SerialMC(steps=10))
+    C = KERNEL_MIN_CHAINS["hmc"]
+    if fused is False:
+        assert not kernel_route(t, C, backend=backend, fused=fused)
+    elif backend == "gpu":
+        assert kernel_route(t, C, backend=backend, fused=fused)
+    elif fused is True:
+        with pytest.raises(ValueError, match="GPU"):
+            kernel_route(t, C, backend=backend, fused=fused)
+        assert kernel_route(t, C, backend=backend, fused=fused,
+                            interpret=True)
+    else:
+        assert not kernel_route(t, C, backend=backend, fused=fused)
+
+
+def _refusal_cases():
+    X, Y = _data()
+    glm = mc.model(glm=("logistic", X, Y))
+    r = mc.SerialMC(steps=10)
+    wide = mc.model(glm=("logistic", np.ones((20, 65)), np.ones(20)))
+    return {
+        "x64": (glm, mc.HMC(5, 0.1), dict(x64=True), "float32"),
+        "not_glm": (mc.model(lambda v: -v @ v, gradient=True,
+                             init=jnp.zeros(2), check_init=False),
+                    mc.HMC(5, 0.1), {}, "model"),
+        "tuned_hmc": (glm, mc.HMC(5, 0.1, mc.EmpMCTuner(0.8)), {},
+                      "sampler"),
+        "hmcda": (glm, mc.HMCDA(), {}, "sampler"),
+        "nuts": (glm, mc.NUTS(), {}, "sampler"),
+        "probit": (mc.model(glm=("probit", X, Y)), mc.HMC(5, 0.1), {},
+                   "links"),
+        "custom_link": (mc.model(glm=((lambda z, y: -z * z,
+                                       lambda z, y: -2 * z), X, Y)),
+                        mc.HMC(5, 0.1), {}, "links"),
+        "wide": (wide, mc.HMC(5, 0.1), {}, "d <="),
+    }, r
+
+
+@pytest.mark.parametrize("case", ["x64", "not_glm", "tuned_hmc", "hmcda",
+                                  "nuts", "probit", "custom_link", "wide"])
+def test_kernel_route_refusals(case):
+    """Every condition the kernel needs: "auto" quietly takes the generic
+    engine, fused=True raises with the reason."""
+    cases, r = _refusal_cases()
+    model, sampler, kw, why = cases[case]
+    t = MCMCTask(model, sampler, r)
+    assert not kernel_route(t, 10 ** 6, backend="gpu", **kw)
+    with pytest.raises(ValueError, match=why):
+        kernel_route(t, 10 ** 6, backend="gpu", fused=True, **kw)
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "mala"])
+def test_kernel_route_min_chains(sampler):
+    """"auto" takes the kernel from the sampler's KERNEL_MIN_CHAINS chains;
+    fused=True takes it at any count."""
+    X, Y = _data()
+    s = mc.HMC(5, 0.1) if sampler == "hmc" else mc.MALA(0.02)
+    t = MCMCTask(mc.model(glm=("logistic", X, Y)), s, mc.SerialMC(steps=10))
+    n = KERNEL_MIN_CHAINS[sampler]
+    assert not kernel_route(t, n - 1, backend="gpu")
+    assert kernel_route(t, n, backend="gpu")
+    assert kernel_route(t, 2, backend="gpu", fused=True)
+
+
+@pytest.mark.parametrize("case", ["linear", "poisson", "d20", "d64"])
+def test_kernel_route_auto_only_where_measured(case):
+    """Links and widths the kernel serves but was not timed on stay on the
+    generic engine under "auto"; fused=True still takes the kernel."""
+    kind = case if case in ("linear", "poisson") else "logistic"
+    d = int(case[1:]) if case.startswith("d") else 4
+    X, Y = _data(d=d)
+    if kind == "poisson":
+        Y = np.round(2 * Y)
+    t = MCMCTask(mc.model(glm=(kind, X, Y)), mc.HMC(5, 0.1),
+                 mc.SerialMC(steps=10))
+    assert not kernel_route(t, 10 ** 6, backend="gpu")
+    assert kernel_route(t, 10 ** 6, backend="gpu", fused=True)
+
+
+def test_fused_true_off_gpu_raises():
+    """Without a GPU and without interpret=True, fused=True raises before
+    any sampling."""
+    X, Y = _data()
+    task = (mc.model(glm=("logistic", X, Y)) * mc.HMC(5, 0.1)
+            * mc.SerialMC(steps=10))
+    with pytest.raises(ValueError, match="GPU"):
+        mc.run(task, chains=4, fused=True)

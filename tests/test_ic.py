@@ -9,7 +9,7 @@ exact posterior — the tests gate the *estimators*, not a sampler.
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 rng = np.random.default_rng(3)
 N, S = 50, 8000

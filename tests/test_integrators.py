@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.samplers.integrators import (
+import mcmc_jl as mc
+from mcmc_jl.samplers.integrators import (
     INTEGRATORS, get_integrator, hamiltonian,
 )
 

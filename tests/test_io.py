@@ -3,8 +3,8 @@ resume — reference chains die with the Julia session)."""
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.utils.io import load_chain, load_task_into, save_chain, save_task
+import mcmc_jl as mc
+from mcmc_jl.utils.io import load_chain, load_task_into, save_chain, save_task
 
 
 def _model():

@@ -8,7 +8,7 @@ dramatically improve the worst-coordinate ESS."""
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 SDS = np.array([10.0, 1.0, 0.1])
 

@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def test_debug_returns_jaxpr():
@@ -48,7 +48,7 @@ def test_scalar_init_and_default_pmap():
 
 
 def test_multihost_helpers_single_process():
-    from mcmc_jl_tpu.parallel import multihost
+    from mcmc_jl.parallel import multihost
 
     multihost.initialize(num_processes=1)
     mesh = multihost.global_mesh()

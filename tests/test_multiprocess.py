@@ -29,7 +29,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 coord, pid = sys.argv[1], int(sys.argv[2])
-from mcmc_jl_tpu.parallel import multihost
+from mcmc_jl.parallel import multihost
 multihost.initialize(coordinator_address=coord, num_processes=2,
                      process_id=pid)
 assert jax.process_count() == 2, jax.process_count()
@@ -37,8 +37,8 @@ assert len(jax.devices()) == 2, jax.devices()
 
 import numpy as np
 import jax.numpy as jnp
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.parallel.sharded import (make_mesh, run_chains_sharded,
+import mcmc_jl as mc
+from mcmc_jl.parallel.sharded import (make_mesh, run_chains_sharded,
                                           sharded_glm_model)
 
 # 2-device global mesh: data axis spans the two PROCESSES -> the psum'd
@@ -87,8 +87,8 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import numpy as np
 import jax.numpy as jnp
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.parallel.sharded import (make_mesh, run_chains_sharded,
+import mcmc_jl as mc
+from mcmc_jl.parallel.sharded import (make_mesh, run_chains_sharded,
                                           sharded_glm_model)
 mesh = make_mesh(n_chain_devices=1, n_data_devices=2,
                  devices=jax.devices()[:2])

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.parallel import default_mesh, init_chains, run_chains
+import mcmc_jl as mc
+from mcmc_jl.parallel import default_mesh, init_chains, run_chains
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.parallel import default_mesh, run_chains
+import mcmc_jl as mc
+from mcmc_jl.parallel import default_mesh, run_chains
 
 
 def test_pooled_step_sizes_are_shared():

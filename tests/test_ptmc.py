@@ -1,9 +1,9 @@
-"""Batched replica-exchange tempering (runners/ptmc.py) — the TPU-native
+"""Batched replica-exchange tempering (runners/ptmc.py) — the batched
 ladder SURVEY §2.4 prescribes for SerialTempMC's workload."""
 import jax.numpy as jnp
 import numpy as np
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def _bimodal(st=0.35):
@@ -51,31 +51,27 @@ def test_ptmc_validates_ladder():
 
 
 def test_poisson_link_kernel():
-    """Poisson-link GLM kernel gradient matches autodiff (interpret mode)."""
+    """Poisson-link GLM kernel lp/gradient match autodiff of the model's own
+    log-density (kernel in the Pallas interpreter, f32)."""
     import jax
-    from mcmc_jl_tpu.ops.pallas_glm import (
-        glm_hmc_leapfrogs, link_terms, pad_chains, pad_design,
+    from mcmc_jl.ops.pallas_glm import (
+        glm_trajectory, pad_chains, pad_design, padded_dim,
     )
 
     rng = np.random.default_rng(2)
     n, d = 40, 4
-    X = np.column_stack([np.ones(n), rng.standard_normal((n, d - 1)) * 0.3]).astype(np.float32)
-    Y = rng.poisson(2.0, n).astype(np.float32)
-    ll_fn, resid_fn = link_terms("poisson")
-    Xj, Yj = jnp.asarray(X), jnp.asarray(Y)
-
-    def logp(th):
-        z = Xj @ th
-        return jnp.sum(ll_fn(z, Yj)) - 0.5 * th @ th
-
-    theta = jnp.asarray(rng.standard_normal(d).astype(np.float32) * 0.1)
-    lp, g_auto = jax.value_and_grad(logp)(theta)
-    XT, Y2, d_pad = pad_design(X, Y)
-    th1, m1, g1, lp1 = glm_hmc_leapfrogs(
-        XT, Y2, pad_chains(theta[None], d_pad), jnp.zeros((1, d_pad), jnp.float32),
-        jnp.zeros((1, d_pad), jnp.float32), 0.0, n_leaps=1, block_chains=1,
-        interpret=True, kind="poisson",
-    )
+    X = np.column_stack([np.ones(n), rng.standard_normal((n, d - 1)) * 0.3])
+    Y = rng.poisson(2.0, n).astype(np.float64)
+    with jax.enable_x64(False):
+        model = mc.model(glm=("poisson", X, Y))
+        theta = jnp.asarray(rng.standard_normal(d) * 0.1, jnp.float32)
+        lp, g_auto = jax.value_and_grad(model.eval)(theta)
+        XT, Y2, W, O = pad_design(X, Y)
+        D = padded_dim(d)
+        z = pad_chains(jnp.zeros((1, d), jnp.float32), D)
+        th1, m1, g1, lp1 = glm_trajectory(
+            XT, Y2, W, O, pad_chains(theta[None], D), z, z, n_obs=n,
+            n_leaps=1, eps=0.0, kind="poisson", interpret=True)
     np.testing.assert_allclose(float(lp1[0]), float(lp), rtol=2e-5, atol=1e-4)
     np.testing.assert_allclose(np.asarray(g1[0, :d]), np.asarray(g_auto),
                                rtol=2e-4, atol=2e-4)

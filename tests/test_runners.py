@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 
 def test_seqmc_readme_example2():
@@ -99,7 +99,7 @@ def test_resume_is_exact():
     assert not np.allclose(c2.samples.values[0], np.ones(2))
 
     # exactness: same-key scan split in two halves equals one long scan
-    from mcmc_jl_tpu.runners.serialmc import run_serialmc
+    from mcmc_jl.runners.serialmc import run_serialmc
     import jax
 
     t = (m * s * mc.SerialMC(steps=100))
@@ -217,7 +217,7 @@ def test_serialtempmc_crosses_modes():
 
 
 def test_thin_on_device_matches_host_thinning():
-    from mcmc_jl_tpu.parallel import run_chains
+    from mcmc_jl.parallel import run_chains
 
     m = mc.model(lambda v: -jnp.dot(v, v), grad=lambda v: -2 * v,
                  init=jnp.ones(2))
@@ -264,11 +264,11 @@ def test_seqmc_resume_carries_sampler_states():
 
 
 def test_seqmc_systematic_and_stratified_resampling():
-    """SURVEY §2.4 TPU redesign: low-variance comb resamplers.  Both must
+    """SURVEY §2.4 batched redesign: low-variance comb resamplers.  Both must
     reproduce the bimodal |x| target; the unit-level check verifies the
     comb hits expected counts (within 1) for a fixed weight vector."""
     import jax
-    from mcmc_jl_tpu.runners.seqmc import _resample
+    from mcmc_jl.runners.seqmc import _resample
 
     # unit: weights [.5,.25,.125,.125] with systematic comb -> counts
     # within 1 of N*w (the defining low-variance property)

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 A = np.array([[1.0, 0.3, 0.0], [0.3, 2.0, 0.2], [0.0, 0.2, 0.5]])
 AINV = np.linalg.inv(A)

@@ -1,5 +1,5 @@
 """Data-sharded likelihood engine on the virtual mesh
-(mcmc_jl_tpu/parallel/sharded.py — the ('chains','data') 2-D mesh path the
+(mcmc_jl/parallel/sharded.py — the ('chains','data') 2-D mesh path the
 driver's dryrun_multichip exercises).
 
 The gradient test is a regression guard for the shard_map AD pitfall: inside
@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.parallel.sharded import (
+import mcmc_jl as mc
+from mcmc_jl.parallel.sharded import (
     make_mesh, run_chains_sharded, sharded_glm_model,
 )
 

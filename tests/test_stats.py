@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
-from mcmc_jl_tpu.ops.acf import autocov
-from mcmc_jl_tpu.stats.var import mcvar_bm, mcvar_iid, mcvar_imse, mcvar_ipse
+import mcmc_jl as mc
+from mcmc_jl.ops.acf import autocov
+from mcmc_jl.stats.var import mcvar_bm, mcvar_iid, mcvar_imse, mcvar_ipse
 
 
 def test_autocov_matches_numpy():
@@ -141,7 +141,7 @@ def test_acceptance_lags_and_reject():
 
 def test_multichain_rhat_and_pooled_ess():
     """Cross-chain diagnostics on a well-mixed vmapped batch."""
-    from mcmc_jl_tpu.parallel import run_chains
+    from mcmc_jl.parallel import run_chains
 
     m = mc.model(lambda v: -jnp.dot(v, v), grad=lambda v: -2 * v,
                  init=jnp.ones(2))
@@ -166,7 +166,7 @@ def test_wsample():
 
 
 def test_throughput_report():
-    from mcmc_jl_tpu.utils.profiling import throughput_report, timed
+    from mcmc_jl.utils.profiling import throughput_report, timed
 
     chain = _gaussian_chain(steps=1200, burnin=200)
     rep = throughput_report(chain, n_chains=1, n_leaps=10)

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mcmc_jl_tpu as mc
+import mcmc_jl as mc
 
 A = np.array([[1.0, 0.3, 0.0], [0.3, 2.0, 0.2], [0.0, 0.2, 0.5]])
 MU = np.array([0.5, -0.3, 0.2])
@@ -60,7 +60,7 @@ def test_leaf_selection_and_reversibility():
             mod, x, lp, mm, g, jnp.asarray(0.05), None)
         assert not bool(bad) and not bool(halved)
         # l=0 must be exactly one leapfrog of the macro step
-        from mcmc_jl_tpu.samplers.integrators import leapfrog
+        from mcmc_jl.samplers.integrators import leapfrog
         p_ref, lp_ref, _, m_ref = leapfrog(mod, x, mm, g, jnp.asarray(0.05))
         np.testing.assert_allclose(np.asarray(p), np.asarray(p_ref))
         np.testing.assert_allclose(np.asarray(m1), np.asarray(m_ref))
